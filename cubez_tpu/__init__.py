@@ -1,4 +1,4 @@
-"""cubez_tpu — a TPU-native structured-grid iterative-solver platform.
+"""cubez_tpu — a structured-grid iterative-solver platform in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of
 kenoogl/CubeZ: Jacobi, point-SOR, 2-color red-black SOR, line-SOR via

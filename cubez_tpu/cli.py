@@ -18,7 +18,7 @@ import time
 def build_argparser():
     ap = argparse.ArgumentParser(
         prog="czx",
-        description="TPU-native CubeZ-capability iterative-solver platform",
+        description="CubeZ-capability structured-grid iterative-solver platform",
     )
     ap.add_argument("gsz", nargs=3, type=int, help="global node counts x y z")
     ap.add_argument("solver", type=str)
@@ -30,7 +30,8 @@ def build_argparser():
     ap.add_argument("--dist", action="store_true", help="shard over all devices")
     ap.add_argument(
         "--impl", choices=("auto", "pallas", "jnp"), default="auto",
-        help="sweep kernel implementation (auto: fused Pallas on TPU)",
+        help="sweep implementation (auto: the red-black Triton kernel on a "
+        "GPU where solvers/dispatch.py picks it, XLA elsewhere)",
     )
     ap.add_argument(
         "--profile", action="store_true",
@@ -46,9 +47,8 @@ def build_argparser():
         "time excludes compilation",
     )
     ap.add_argument(
-        "--platform", choices=("cpu", "tpu"), default=None,
-        help="pin the JAX platform in-process (overrides plugin defaults; "
-        "useful when the accelerator is unreachable)",
+        "--platform", choices=("cpu", "gpu"), default=None,
+        help="pin the JAX platform in-process",
     )
     return ap
 
@@ -60,6 +60,9 @@ def main(argv=None):
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    from .utils import compile_cache
+
+    compile_cache.enable()
     if args.fp64:
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
@@ -87,6 +90,10 @@ def main(argv=None):
     prob = Problem.poisson_cube((gx, gy, gz), dtype=dtype, maf=is_maf)
 
     cm = None
+    if (args.dist or gdv) and args.impl == "pallas":
+        # solve() checks --impl on one device; a mesh runs jnp steps only
+        print("--impl pallas: there is no distributed kernel", file=sys.stderr)
+        return 2
     if args.dist or gdv:
         from .parallel.mesh import make_mesh
 
@@ -106,8 +113,7 @@ def main(argv=None):
 
             solve_dist(
                 prob, cm, args.solver, omega=args.coef,
-                itr_max=args.itr_max, eps=1e9, impl=args.impl,
-                precond=precond,
+                itr_max=args.itr_max, eps=1e9, precond=precond,
             )
         else:
             solve(
@@ -121,8 +127,7 @@ def main(argv=None):
 
         res = solve_dist(
             prob, cm, args.solver, omega=args.coef, itr_max=args.itr_max,
-            eps=args.eps, history_path=f"{args.solver}.txt", impl=args.impl,
-            precond=precond,
+            eps=args.eps, history_path=f"{args.solver}.txt", precond=precond,
         )
     else:
         res = solve(

@@ -1,6 +1,6 @@
 """Grid specification for the cube Poisson/Laplace problem.
 
-TPU-native re-design of the reference's DomainInfo + allocation layer
+JAX re-design of the reference's DomainInfo + allocation layer
 (reference: src/cz_cpp/DomainInfo.h:27-139, cz_Evaluate.cpp:88,222-224,342-363).
 
 Conventions
@@ -8,10 +8,10 @@ Conventions
 * Node-centered unit cube: node ``i`` (0-based) sits at ``x = i * pitch`` with
   ``pitch = 1 / (nk - 1)`` isotropic (reference cz_Evaluate.cpp:88).
 * Array layout is ``(K, I, J)``: the tridiagonal line-solve axis K is the
-  *major* axis so PCR stage shifts are cheap relayout-free slices on TPU,
-  while J rides the 128-wide lane dimension for the VPU.  (The reference is
-  also KIJ — src/cz_f90/cz_solver.f90:218 — but for CPU-vectorization
-  reasons; here the motivation is TPU tiling.)
+  *major* axis so PCR stage shifts are cheap slices of whole planes, while
+  J is the contiguous axis, so loads along J coalesce.  (The reference is
+  also KIJ — src/cz_f90/cz_solver.f90:218 — for CPU-vectorization
+  reasons.)
 * No ghost/guide cells on a single device: the outermost node shell *is* the
   Dirichlet boundary data (the reference allocates GUIDE=2 but only ever
   exchanges/reads width 1 — cz_Define.h:40, cz_Poisson.cpp:63).

@@ -1,7 +1,7 @@
 """MAF (matrix-assembly-free) variable-coefficient operators.
 
 The reference recomputes metric terms from the 1D coordinate arrays inside
-every kernel (cz_maf.f90, cz_blas.f90:738-1039).  On TPU we exploit that every
+every kernel (cz_maf.f90, cz_blas.f90:738-1039).  Here we exploit that every
 metric factor is separable per axis: C1,C7 depend only on i; C2,C8 only on j;
 C3,C9 only on k.  We precompute six 1D coefficient arrays shaped for
 broadcasting over (K, I, J) — the variable-coefficient sweeps then cost barely

@@ -1,6 +1,6 @@
 """Batched line-PCR along K for the LSOR solver family.
 
-TPU-native re-design of the reference PCR kernels (pcr / pcr_rb / pcr_eda /
+JAX re-design of the reference PCR kernels (pcr / pcr_rb / pcr_eda /
 pcr_esa / pcr_rb_esa / pcr_j_esa, cz_solver.f90:497-1676, and their MAF twins
 cz_maf.f90:442-1560).
 

@@ -4,9 +4,9 @@ The reference's full-plane pcr relaxes each line inside the lexicographic
 (j, i) loop (cz_solver.f90:848-856), so its serial semantics are line-GS.
 Line (i, j) reads updated lines (i-1, j) and (i, j-1) — diagonal i+j-1 —
 and old lines (i+1, j), (i, j+1) — diagonal i+j+1: the same 2D diagonal
-wavefront as point-SOR, one level up.  The round-3 implementation solved
+wavefront as point-SOR, one level up.  An earlier implementation solved
 ALL lines every diagonal and masked one diagonal's update — O(N) full-plane
-line solves per sweep, 44 Mcells/s at 128^3.
+line solves per sweep.
 
 Here a sweep is a fori_loop over the 2N-3 diagonals in the SKEWED layout of
 ops/psor_scan.py (S[d, k, i] = X[k, i, d-i], gather-free strided-reshape

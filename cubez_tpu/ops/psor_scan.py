@@ -3,8 +3,8 @@
 The reference's psor (cz_solver.f90:207-269) is serial Gauss-Seidel in
 (j, i, k) order.  Its data-dependency DAG admits the classic hyperplane
 ordering (i+j+k = const), but updating one masked hyperplane per step does
-O(N^3) work for O(N^2) updates — O(N^4) per sweep, ~67 Mcells/s at 128^3
-(the round-3 implementation, kept in ops/stencil.py::psor_sweep for bitwise
+O(N^3) work for O(N^2) updates — O(N^4) per sweep (an earlier
+implementation, kept in ops/stencil.py::psor_sweep for bitwise
 reference).  This module restores O(N^3) per sweep with two observations:
 
 1. **K-lines are affine recurrences.**  Within a line (i, j), the GS update
@@ -20,9 +20,8 @@ reference).  This module restores O(N^3) per sweep with two observations:
    d = i+j update together, and a sweep is a fori_loop over 2N-3 diagonals
    (vs 3N-4 hyperplanes), each step O(K * N_lines) work.
 
-TPU-critical layout choices (the first cut of this module used a gather-
-based skew and lane-axis dynamic slices: 18 Mcells/s at 128^3 — worse than
-the hyperplane form):
+Layout choices (a first cut with a gather-based skew and dynamic slices
+along the last axis ran slower than the hyperplane form):
 
 * **Gather-free skew.**  S[k, i, d] = X[k, i, d-i] is a *strided reshape*:
   pad the J axis to W = ni+nj, flatten (i, j), and re-read with row stride
@@ -31,8 +30,8 @@ the hyperplane form):
   handles as relayouts, never scalar gathers.
 * **Diagonal axis LEADING.**  The per-diagonal loop slices and updates
   S[d] as a contiguous (K, I) slab on the major axis (alias-friendly
-  dynamic_update_slice inside the fori carry); K stays on sublanes and I
-  on lanes for the associative scan's shifted adds.
+  dynamic_update_slice inside the fori carry); the associative scan's
+  shifted adds run over (K, I).
 * **State stays skewed across the whole solve** — step._pre / step._post
   convert once per solve (the driver folds them into the loop executable),
   not once per sweep.

@@ -4,23 +4,21 @@
     cm = make_mesh(prob.grid.shape_kij)          # all local devices
     result = solve_dist(prob, cm, "sor2sma", omega=1.5, itr_max=10000)
 
-Chooses the fastest available step implementation per solver:
-fused per-block Pallas sweeps (jacobi/sor2sma, f32) > explicit shard_map
-jnp steps (all families incl. MAF and the line solvers) — and runs the
-same while_loop driver/convergence logic as the serial path.
+The explicit shard_map jnp steps (parallel/dist.py: jacobi, sor2sma,
+pcr_j_esa and pcr_rb, constant and MAF) run where they exist; every other
+solver runs its serial jnp step on sharded arrays (auto-SPMD: XLA inserts
+the halo collectives and all-reduces itself).  Both run the same
+while_loop driver and convergence logic as the serial path.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
-
-import jax
-import jax.numpy as jnp
 
 from ..core.problem import Problem
 from ..solvers.driver import EPS_DEFAULT, SolveResult, run_iterative
-from . import dist_fused
-from .dist import make_dist_step
+from .dist import SYNCS, make_dist_step
 from .mesh import CubeMesh
 
 
@@ -32,189 +30,66 @@ def solve_dist(
     itr_max: int,
     eps: float = EPS_DEFAULT,
     history_path: Optional[str] = None,
-    impl: str = "auto",
     sync: str = "auto",
     check_every: Optional[int] = None,
     precond: Optional[str] = None,
 ) -> SolveResult:
-    """Run a relaxation/line solver distributed over the mesh.
+    """Run a solver distributed over the mesh.
 
     The returned SolveResult.x is the assembled global (K, I, J) field.
-    ``sync`` selects the red-black halo cadence: 'pack' is the production
-    path — packed-RB blocks with depth-2n ghost exchange and n-iteration
-    temporally-blocked window chains, owned cells bitwise the serial
-    result (dist_pack.py); 'color'/'iter' are the per-iteration cadences
-    (dist_fused.py); 'overlap' overlaps ghost collectives with compute.
-    'auto' resolves to 'pack' where it applies, else 'color'; an
-    EXPLICIT sync='pack' raises where the packed path cannot run
-    (non-sor2sma, jnp impl, f64, nonzero inner RHS, or blocks thinner
-    than the ghost depth) instead of silently changing trajectories.
-
-    Every solver name runs (the reference runs all of them multi-rank,
-    cz_Poisson.cpp); the step implementation degrades gracefully:
-    fused per-block Pallas kernels > explicit shard_map jnp steps >
-    auto-SPMD (the serial jnp step on sharded arrays — XLA inserts the
-    halo collectives and all-reduces itself).
+    ``sync`` selects the red-black halo cadence of the explicit steps:
+    'color' (one exchange per color, serial-equivalent; 'auto' is
+    'color'), 'iter' (one exchange per iteration, the reference's
+    multi-rank cadence, cz_Poisson.cpp:194-215) or 'overlap' (the
+    per-color exchange overlapped with the interior update).  Every step
+    here is a jnp step: there is no distributed kernel.
     """
     from ..solvers.steps import parse_name
 
+    if sync not in ("auto",) + SYNCS:
+        raise ValueError(f"sync must be 'auto' or one of {SYNCS}, got {sync!r}")
     g = problem.grid
-    kind, is_maf = parse_name(solver)
+    kind, _ = parse_name(solver)
+    prob_sh = dataclasses.replace(
+        problem,
+        x0=cmesh.shard(problem.x0),
+        rhs=cmesh.shard(problem.rhs),
+        msk=cmesh.shard(problem.msk),
+    )
 
     if kind in ("pbicgstab", "cg"):
         # Krylov vectors stay sharded fields (dots lower to psum
-        # all-reduces under GSPMD); the preconditioner runs the fused
-        # per-block sweeps (bicgstab._fused_precon with cmesh)
-        import dataclasses
-
-        prob_sh = dataclasses.replace(
-            problem,
-            x0=cmesh.shard(problem.x0),
-            rhs=cmesh.shard(problem.rhs),
-            msk=cmesh.shard(problem.msk),
-        )
+        # all-reduces under GSPMD)
         if kind == "cg":
             from ..solvers.cg import make_cg
 
-            run = make_cg(prob_sh, omega, precond, impl, cmesh=cmesh)
+            run = make_cg(prob_sh, omega, precond)
         else:
             from ..solvers.bicgstab import make_bicgstab
 
-            run = make_bicgstab(prob_sh, solver, omega, precond, impl,
-                                cmesh=cmesh)
+            run = make_bicgstab(prob_sh, solver, omega, precond)
         result = run(prob_sh.x0, prob_sh.rhs, itr_max, eps, g.res_normal)
-        if history_path:
-            result.write_history(history_path)
-        return result
-
-    line = kind in ("pcr", "pcr_rb")
-    on_tpu = jax.default_backend() == "tpu"
-    use_fused = (
-        (impl == "pallas" or (impl != "jnp" and on_tpu))
-        and g.dtype == jnp.float32
-        and kind in ("jacobi", "sor2sma", "pcr", "pcr_rb")
-        # MAF line solvers fuse per block; MAF sor2sma runs the packed
-        # production path (dist_pack) where it applies
-        and (not is_maf or line or kind == "sor2sma")
-    )
-
-    overlap = sync == "overlap"
-    interpret = jax.default_backend() != "tpu"
-
-    # production path first: packed-RB blocks + communication-avoiding
-    # temporal blocking, owned cells bitwise the serial production kernel
-    pack_eligible = (
-        use_fused and not overlap and sync in ("auto", "pack")
-        and kind == "sor2sma"
-    )
-    if sync == "pack" and not pack_eligible:
-        raise ValueError(
-            "sync='pack' applies only to the fused sor2sma path "
-            "(impl pallas/auto-on-TPU, f32); use sync='auto' to fall "
-            "back to 'color'"
-        )
-    if pack_eligible:
-        from . import dist_pack
-
-        pstep = dist_pack.make_dist_packed_step(
-            problem, cmesh, omega, interpret=interpret
-        )
-        if pstep is None and sync == "pack":
-            # an EXPLICIT pack request must not silently downgrade to the
-            # per-color cadence (different trajectories / iteration
-            # counts than the bitwise-serial contract the caller asked
-            # for); only sync='auto' falls back
-            raise ValueError(
-                "sync='pack' unavailable for this configuration (needs "
-                "f32, zero inner RHS, even block dims >= the 2n ghost "
-                "depth); use sync='auto' to fall back to 'color'"
-            )
-        if pstep is not None:
-            hs = pstep.hs
-            xs = dist_pack.to_packed_state(cmesh, problem.x0, hs)
-            # the packed step is zero-RHS by contract (its body ignores
-            # b); reuse xs as the placeholder instead of packing a
-            # second extended state (87 MB/device at 256^3 n=5 blocks)
-            bs = xs
-            result = run_iterative(
-                pstep, xs, bs, g.res_normal, itr_max, eps,
-                check_every=check_every,
-            )
-            import dataclasses
-
-            result = dataclasses.replace(
-                result,
-                x=dist_pack.from_packed_state(
-                    cmesh, result.x, g.shape_kij, hs
-                ),
-            )
-            if history_path:
-                result.write_history(history_path)
-            return result
-
-    step = None
-    if use_fused and overlap and kind == "sor2sma" and not is_maf:
-        # halo exchange overlapped with the fused interior kernel
-        # (bitwise == the sequential per-color path; see dist_fused)
-        step = dist_fused.make_dist_fused_overlap_step(
-            problem, cmesh, omega,
-            b_is_zero=problem.rhs_is_inner_zero(),
-            interpret=interpret,
-        )
-    elif use_fused and not overlap:
-        step = dist_fused.make_dist_fused_step(
-            problem, cmesh, kind, omega,
-            sync="color" if sync in ("auto", "pack") else sync,
-            b_is_zero=problem.rhs_is_inner_zero(),
-            interpret=interpret,
-        )
-    if step is not None:
-        if line:
-            to_state = dist_fused.to_line_block_state
-            from_state = dist_fused.from_line_block_state
-        else:
-            to_state = dist_fused.to_block_state
-            from_state = dist_fused.from_block_state
-        xs = to_state(cmesh, problem.x0)
-        bs = to_state(cmesh, problem.rhs)
-        result = run_iterative(
-            step, xs, bs, g.res_normal, itr_max, eps, check_every=check_every
-        )
-        x = from_state(cmesh, result.x, g.shape_kij)
-        import dataclasses
-
-        result = dataclasses.replace(result, x=x)
     else:
         try:
-            step = make_dist_step(problem, cmesh, solver, omega,
-                                  overlap=overlap)
-        except (ValueError, NotImplementedError):
+            step = make_dist_step(
+                problem, cmesh, solver, omega,
+                sync="color" if sync == "auto" else sync,
+            )
+        except NotImplementedError:
+            if sync not in ("auto", "color"):
+                raise
             step = None
         if step is not None:
             result = run_iterative(
-                step,
-                cmesh.shard(problem.x0),
-                cmesh.shard(problem.rhs),
-                g.res_normal,
-                itr_max,
-                eps,
+                step, prob_sh.x0, prob_sh.rhs, g.res_normal, itr_max, eps,
                 check_every=check_every,
             )
         else:
-            # auto-SPMD fallback: the serial steps are pure jnp, so jit on
-            # sharded arrays lets XLA insert the collectives (GSPMD) —
-            # serial-exact semantics on any mesh
-            import dataclasses
-
-            from ..solvers.steps import make_step
-
-            prob_sh = dataclasses.replace(
-                problem,
-                x0=cmesh.shard(problem.x0),
-                rhs=cmesh.shard(problem.rhs),
-                msk=cmesh.shard(problem.msk),
-            )
+            # auto-SPMD: the serial steps are pure jnp, so jit on sharded
+            # arrays lets XLA insert the collectives (GSPMD) — serial-exact
+            # semantics on any mesh
             from ..solvers.api import _initial_x
+            from ..solvers.steps import make_step
 
             sstep = make_step(prob_sh, solver, omega)
             result = run_iterative(

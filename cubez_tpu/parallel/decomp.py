@@ -4,7 +4,7 @@
 Enumerates all factorizations (dz, dx, dy) of the device count and scores
 them the way CBrick documents (volume balance, then communication surface,
 then cubeness).  Deterministic; ties broken by preferring more division along
-J (the lane axis) last, since J-halos are the cheapest relayouts on TPU.
+J (the contiguous axis) last, then I.
 """
 
 from __future__ import annotations
@@ -69,5 +69,5 @@ def auto_division(nproc: int, gsize) -> tuple[int, int, int]:
     ]
     if not cands:
         raise ValueError(f"cannot divide {gsize} over {nproc} devices")
-    # prefer more division along J last-axis on ties (cheap TPU halos)
+    # prefer more division along the last (J) axis on ties
     return min(cands, key=lambda d: (score_division(d, gsize), -d[2], -d[1]))

@@ -88,14 +88,45 @@ def _overlap_delta(xb, bh, mh, om, delta_fn):
     return dp
 
 
+# red-black halo cadences of the explicit steps
+SYNCS = ("color", "iter", "overlap")
+
+
+def _rb_iter(xb, bb, mb, cmasks, delta_fn):
+    """One red-black iteration with ONE halo exchange (the reference's
+    multi-rank cadence, cz_Poisson.cpp:194-215): both colors update the
+    halo'd block, so the second color reads stale ghosts of the first.
+    Returns (interior, r2)."""
+    xh = exchange_halo(xb)
+    bh = pad_zeros(bb)
+    r2 = jnp.zeros((), xb.dtype)
+    for cm in cmasks:
+        dp = delta_fn(xh, bh, pad_zeros(mb * cm))
+        xh = xh + dp  # the zero-padded mask keeps the ghosts' dp zero
+        r2 = r2 + psum_all(jnp.sum(dp * dp))
+    return _interior(xh), r2
+
+
 def make_dist_step(problem: Problem, cmesh: CubeMesh, name: str, omega: float,
-                   overlap: bool = False):
+                   sync: str = "color"):
     """Build a sharded step(x, b) -> (x_new, r2) running one iteration with
     explicit halo exchange.  Supported: jacobi, sor2sma, pcr_j_esa, pcr_rb
-    (+ MAF point sweeps).  ``overlap=True`` (jacobi/sor2sma, const) computes
-    the interior concurrently with the ghost collectives — see
-    _overlap_delta."""
+    (+ MAF forms); other solvers raise NotImplementedError.  ``sync``
+    (sor2sma; jacobi takes 'color' and 'overlap'): 'color' exchanges
+    before each color, 'iter' once per iteration (_rb_iter), 'overlap'
+    computes the interior concurrently with the ghost collectives (const
+    form; see _overlap_delta)."""
     kind, is_maf = __parse(name)
+    if sync not in SYNCS:
+        raise ValueError(f"sync must be one of {SYNCS}, got {sync!r}")
+    allowed = {"sor2sma": SYNCS, "jacobi": ("color", "overlap")}
+    if sync not in allowed.get(kind, ("color",)) or (
+        is_maf and sync == "overlap"
+    ):
+        raise NotImplementedError(
+            f"sync={sync!r} has no explicit distributed step for '{name}'"
+        )
+    overlap = sync == "overlap"
 
     g = problem.grid
     dtype = g.dtype
@@ -103,7 +134,7 @@ def make_dist_step(problem: Problem, cmesh: CubeMesh, name: str, omega: float,
     om = jnp.asarray(omega, dtype)
 
     if is_maf:
-        return _make_dist_maf_step(problem, cmesh, kind, om)
+        return _make_dist_maf_step(problem, cmesh, kind, om, sync)
 
     def sharded(body):
         return shard_map(
@@ -140,6 +171,11 @@ def make_dist_step(problem: Problem, cmesh: CubeMesh, name: str, omega: float,
 
         def body(xb, bb, mb):
             cm0, cm1 = _global_color_masks(xb.shape, dtype)
+            if sync == "iter":
+                return _rb_iter(
+                    xb, bb, mb, (cm0, cm1),
+                    lambda xh, bh, mh: stencil.jacobi_delta(xh, bh, mh, om),
+                )
             bh, r2 = pad_zeros(bb), jnp.zeros((), dtype)
             for cm in (cm0, cm1):
                 mh = pad_zeros(mb * cm)
@@ -208,10 +244,11 @@ def make_dist_step(problem: Problem, cmesh: CubeMesh, name: str, omega: float,
         fn = sharded(body)
         return lambda x, b: fn(x, b, msk)
 
-    raise ValueError(f"no explicit distributed step for '{name}'")
+    raise NotImplementedError(f"no explicit distributed step for '{name}'")
 
 
-def _make_dist_maf_step(problem: Problem, cmesh: CubeMesh, kind: str, om):
+def _make_dist_maf_step(problem: Problem, cmesh: CubeMesh, kind: str, om,
+                        sync: str = "color"):
     """Sharded MAF (variable-coefficient) sweeps.
 
     The metric coefficients are separable 1D tables (ops/maf.py); each block
@@ -339,6 +376,11 @@ def _make_dist_maf_step(problem: Problem, cmesh: CubeMesh, kind: str, om):
         def body(xb, bb, mb):
             mcl = local_mc(xb.shape)
             cm0, cm1 = _global_color_masks(xb.shape, dtype)
+            if sync == "iter":
+                return _rb_iter(
+                    xb, bb, mb, (cm0, cm1),
+                    lambda xh, bh, mh: maf_delta(xh, bh, mh, om, mcl),
+                )
             bh, r2 = pad_zeros(bb), jnp.zeros((), dtype)
             for cm in (cm0, cm1):
                 xh = exchange_halo(xb)

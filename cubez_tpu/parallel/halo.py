@@ -1,6 +1,6 @@
 """Width-1 halo exchange over the ('z','x','y') mesh via lax.ppermute.
 
-The TPU-native replacement for CBrick's 6-face nonblocking Isend/Irecv halo
+The JAX replacement for CBrick's 6-face nonblocking Isend/Irecv halo
 sync (BrickComm::Comm_S_node wrapped by CZ::Comm_S, cz_comm.cpp:23-38).
 ``ppermute`` fills zeros for edge devices with no neighbor, which doubles as
 the physical-boundary zero padding our masked sweeps expect.

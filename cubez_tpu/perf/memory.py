@@ -3,7 +3,7 @@ equivalent (cz_miscel.cpp:61-139).
 
 The reference prints the allocated array bytes per rank before solving; here
 we model the device-memory footprint of a solver configuration analytically
-(state arrays + solver work vectors + fused-kernel padding) so capacity
+(state arrays + solver work vectors) so capacity
 planning works without allocating.
 """
 

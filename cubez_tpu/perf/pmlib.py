@@ -10,8 +10,9 @@ model: sections time *dispatched work* (the caller must block_until_ready
 inside the section for honest numbers), flops/bytes are attached analytically
 per kernel exactly like the reference's in-kernel flop accumulators
 (cz_solver.f90:238-241 etc.), and the report adds a roofline column —
-percent of the device's HBM-bandwidth speed-of-light — which is the
-meaningful absolute yardstick on TPU (BASELINE.md).
+percent of the device's published HBM bandwidth (PEAKS below), the
+meaningful absolute yardstick for these bandwidth-bound sweeps
+(BASELINE.md).  The CPU has no peak, so the column stays empty there.
 """
 
 from __future__ import annotations
@@ -120,20 +121,40 @@ class PerfMonitor:
             f.write(self.report() + "\n")
 
 
-def device_hbm_gbps(default: float = 819.0) -> float:
-    """Best-effort HBM bandwidth (GB/s) of jax device 0."""
+# Published peaks per device_kind (dense rates, no sparsity).  Source:
+# NVIDIA H100 Tensor Core GPU data sheet (SXM5, PCIe and NVL columns).  The
+# rates assume the card's full power limit; a card set below it reaches
+# less, so reports print the power limit beside any share of these.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {  # SXM5, 700 W
+        "hbm_gbps": 3350.0, "f32_tflops": 67.0, "f64_tflops": 34.0,
+        "bf16_tflops": 989.0,
+    },
+    "NVIDIA H100 PCIe": {  # 80 GB HBM2e, 350 W
+        "hbm_gbps": 2000.0, "f32_tflops": 51.0, "f64_tflops": 26.0,
+        "bf16_tflops": 756.0,
+    },
+    "NVIDIA H100 NVL": {  # 94 GB HBM3, 400 W
+        "hbm_gbps": 3900.0, "f32_tflops": 60.0, "f64_tflops": 30.0,
+        "bf16_tflops": 835.0,
+    },
+}
+
+
+def device_peaks(device=None) -> Optional[dict]:
+    """Published peaks of ``device`` (default: jax device 0) from PEAKS,
+    keyed by its device_kind.  None on the CPU, which has no peak to
+    divide by; an accelerator missing from the table raises KeyError
+    (no default: a wrong peak makes every share wrong)."""
     import jax
 
-    table = {
-        "tpu v6": 1640.0,   # Trillium / v6e
-        "tpu v5p": 2765.0,
-        "tpu v5": 819.0,    # v5e / v5 lite
-        "tpu v4": 1228.0,
-        "cpu": 50.0,
-    }
-    d = jax.devices()[0]
-    kind = str(getattr(d, "device_kind", d.platform)).lower()
-    for k, v in table.items():
-        if k in kind:
-            return v
-    return default if d.platform != "cpu" else table["cpu"]
+    d = jax.devices()[0] if device is None else device
+    if d.platform == "cpu":
+        return None
+    kind = str(getattr(d, "device_kind", d.platform))
+    if kind not in PEAKS:
+        raise KeyError(
+            f"no published peaks for device_kind {kind!r}; add it to "
+            "cubez_tpu/perf/pmlib.py:PEAKS with its source"
+        )
+    return PEAKS[kind]

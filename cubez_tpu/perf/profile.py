@@ -18,7 +18,7 @@ import time
 import jax
 import jax.numpy as jnp
 
-from .pmlib import CALC, COMM, PerfMonitor, device_hbm_gbps
+from .pmlib import CALC, COMM, PerfMonitor, device_peaks
 from .roofline import sweep_cost
 
 
@@ -55,7 +55,8 @@ def profile_solve(problem, solver: str, omega: float, iters: int = 50,
 
     g = problem.grid
     itemsize = jnp.dtype(g.dtype).itemsize
-    pm = PerfMonitor(hbm_gbps=device_hbm_gbps())
+    peaks = device_peaks()
+    pm = PerfMonitor(hbm_gbps=peaks and peaks["hbm_gbps"])
     kind = solver.lower()
     base = kind[:-4] if kind.endswith("_maf") else kind
     flops1, bytes1 = sweep_cost(base, g.shape_kij, itemsize)
@@ -65,33 +66,24 @@ def profile_solve(problem, solver: str, omega: float, iters: int = 50,
     k, is_maf = parse_name(solver)
 
     if cmesh is None:
-        from ..solvers.api import _can_fuse
+        from ..solvers import dispatch
+        from ..solvers.fused_cache import get_jnp_step, get_rb_step
 
-        step = None
-        if _can_fuse(problem, k, is_maf, impl):
-            from ..solvers.fused_cache import get_fused_step, pad_unpad
-
-            step = get_fused_step(
-                k, g, omega, problem.mc if is_maf else None,
-                jax.default_backend() != "tpu",
-                b_is_zero=problem.rhs_is_inner_zero(),
-            )
-        if step is not None:
-            pad, _ = pad_unpad(k, g, step)
-            x, b = pad(problem.x0), pad(problem.rhs)
-        else:  # no viable tiling / not fuseable — profile the XLA step
-            from ..solvers.fused_cache import get_jnp_step
-
+        # the same choice solve() makes (solvers/dispatch.py)
+        if dispatch.use_rb_kernel(
+            k, g.dtype, impl=impl,
+            sharded=dispatch.is_sharded(problem.x0),
+            standard_mask=problem.msk_is_standard(),
+        ):
+            step = get_rb_step(problem, solver, omega)
+            x, b = step._pre(problem.x0), step._pre(problem.rhs)
+        else:
             step = get_jnp_step(problem, solver, omega)
             x, b = problem.x0, problem.rhs
         run = jax.jit(lambda x, b: fixed_sweeps(step, x, b, iters))
         t_sweeps = _timed(run, x, b)
-        # fixed_sweeps rounds UP to whole multi-iteration calls
-        # (iters_per_call) — attribute to the sweeps actually executed
-        ipc = getattr(step, "iters_per_call", 1)
-        n_exec = -(-iters // ipc) * ipc
         pm.add(f"{solver}_sweep", t_sweeps, kind=CALC,
-               flops=flops1 * n_exec, bytes=bytes1 * n_exec, calls=n_exec)
+               flops=flops1 * iters, bytes=bytes1 * iters, calls=iters)
 
         from ..solvers.driver import run_iterative
 
@@ -107,63 +99,21 @@ def profile_solve(problem, solver: str, omega: float, iters: int = 50,
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from ..parallel import dist_fused
     from ..parallel.dist import make_dist_step
+    from ..parallel.halo import exchange_halo
     from ..parallel.mesh import AXES, FIELD_SPEC
 
     dz, dx, dy = cmesh.div
     bs = (g.nk // dz, g.ni // dx, g.nj // dy)
     cbytes = comm_bytes_per_exchange(bs, itemsize)
 
-    # fused-path eligibility mirrors parallel/api.py::solve_dist; the
-    # canonical kind (not the raw CLI name) selects the kernel, and line
-    # kinds use the line-block state layout + line ghost refresh
-    line = k in ("pcr", "pcr_rb")
-    step = None
-    on_tpu = jax.default_backend() == "tpu"
-    if (
-        (impl == "pallas" or (impl != "jnp" and on_tpu))
-        and g.dtype == jnp.float32
-        and k in ("jacobi", "sor2sma", "pcr", "pcr_rb")
-        and (not is_maf or line)
-    ):
-        step = dist_fused.make_dist_fused_step(
-            problem, cmesh, k, omega,
-            b_is_zero=problem.rhs_is_inner_zero(),
-            interpret=not on_tpu,
-        )
-    if step is not None:
-        to_state = (
-            dist_fused.to_line_block_state if line
-            else dist_fused.to_block_state
-        )
-        if line:
-            import functools
-
-            # the line state's J ghost-lane count follows the mesh
-            # division (gj=0 on Y-unsplit meshes)
-            refresh_fn = functools.partial(
-                dist_fused._refresh_ghosts_line,
-                gj=dist_fused._line_gj(cmesh),
-            )
-        else:
-            refresh_fn = dist_fused._refresh_ghosts
-        x = to_state(cmesh, problem.x0)
-        b = to_state(cmesh, problem.rhs)
-        refresh = shard_map(
-            lambda xp: refresh_fn(xp, bs),
-            mesh=cmesh.mesh, in_specs=(FIELD_SPEC,), out_specs=FIELD_SPEC,
-        )
-    else:
-        step = make_dist_step(problem, cmesh, solver, omega)
-        x = cmesh.shard(problem.x0)
-        b = cmesh.shard(problem.rhs)
-        from ..parallel.halo import exchange_halo
-
-        refresh = shard_map(
-            lambda xb: exchange_halo(xb)[1:-1, 1:-1, 1:-1],
-            mesh=cmesh.mesh, in_specs=(FIELD_SPEC,), out_specs=FIELD_SPEC,
-        )
+    step = make_dist_step(problem, cmesh, solver, omega)
+    x = cmesh.shard(problem.x0)
+    b = cmesh.shard(problem.rhs)
+    refresh = shard_map(
+        lambda xb: exchange_halo(xb)[1:-1, 1:-1, 1:-1],
+        mesh=cmesh.mesh, in_specs=(FIELD_SPEC,), out_specs=FIELD_SPEC,
+    )
 
     run = jax.jit(lambda x, b: fixed_sweeps(step, x, b, iters))
     t_step = _timed(run, x, b)

@@ -6,9 +6,13 @@ cz_solver.f90:438-441; calc_ax 13 / calc_rk 14: cz_blas.f90:607-610,686-689;
 triad 2 / dot 2 / bicg_1 4 / bicg_2 4: cz_blas.f90:278,341,407,471,536;
 MAF point kernels 66: cz_maf.f90:50-53; PCR: cz_solver.f90:523-530,694-701).
 
-Byte counts model the *minimal* HBM traffic of an ideally fused kernel
-(streams actually touched, one read or write each), which is what the Pallas
-kernels achieve — so %SoL is meaningful against them.
+Byte counts model the *minimal* device-memory traffic of an ideally fused
+sweep: each field touched once, one read or write each.  It is a lower
+bound, not what runs: the XLA red-black step makes two masked full-field
+passes (about 6 streams), and the red-black Triton kernel
+(pallas_kernels/rbsweep.py) moves about 3 (the other color read, its own
+color read and written, per color).  A %SoL against this model says how
+far a sweep is from the floor.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ def pcr_flops_per_pt(n: int) -> float:
     return 6 + 14 * max(pn - 2, 0) + 74 * (2 ** max(pn - 2, 0)) / n + 6 + 6
 
 
-# streams: fused-kernel ideal (x read + x write [+ b read])
+# streams: the ideal (x read + x write [+ b read])
 COSTS = {
     "jacobi": KernelCost(18, 3),
     "jacobi_b0": KernelCost(18, 2),
@@ -65,20 +69,13 @@ def sweep_cost(name: str, shape, itemsize: int = 4, b_is_zero: bool = False):
     if b_is_zero and f"{name}_b0" in COSTS:
         key = f"{name}_b0"
     if key not in COSTS and name.startswith("pcr"):
-        # MXU line kernels: dense T^-1 matmul per line = 2K flop/pt (const)
-        # or 4K (MAF fast-diagonalization: V^-1 and V matmuls); transverse
-        # build ~6-12 flop/pt.  The production rb kernel packs lines by
-        # color (pallas_kernels/rblines.py), so one red-black iteration is
-        # ONE full-plane solve — same per-point matmul work as the
-        # line-Jacobi form, NOT two.  The matmul contracts over the padded
-        # K extent (Kp = round_up(K, 8)).  HBM traffic stays read x +
-        # write x [+ read b] — the solve lives in VMEM/MXU.
-        kp = -(-shape[0] // 8) * 8
-        per_pt = 6.0 + 2.0 * kp
-        if name.endswith("_maf"):
-            per_pt *= 2.0  # V and V^-1 matmuls
+        # the reference's own PCR accounting per line point
+        # (cz_solver.f90:694-701) over the K line length; a red-black
+        # iteration solves each line once, like the line-Jacobi form.
+        # Traffic stays read x + write x [+ read b].
         npts = math.prod(shape)
-        streams = 2 if b_is_zero else 3  # kernels skip the zero-RHS stream
+        per_pt = pcr_flops_per_pt(shape[0] - 2)
+        streams = 2 if b_is_zero else 3
         return per_pt * npts, streams * npts * itemsize
     c = COSTS[key]
     npts = math.prod(shape)

@@ -4,8 +4,8 @@ The reference documents multi-node runs only as mpirun invocations
 (example/scripts.txt); this module makes scaling a first-class measurement:
 run the same per-device block size over growing meshes and report parallel
 efficiency.  On a single host it exercises the real collective code paths
-over XLA's virtual CPU devices (functional check); on a TPU pod slice the
-same code measures true ICI scaling.
+over XLA's virtual CPU devices (functional check); on several GPUs the same
+code measures the explicit shard_map steps over NVLink.
 """
 
 from __future__ import annotations
@@ -27,10 +27,6 @@ class ScalePoint:
     global_shape: tuple
     iters: int
     seconds: float
-    # which step implementation actually ran ("fused" per-block Pallas or
-    # the explicit shard_map "jnp" step) — the fused path can decline to
-    # build (no viable tiling), so callers/tests must not assume it ran
-    step_impl: str = "jnp"
 
     @property
     def cells_per_s(self) -> float:
@@ -45,56 +41,27 @@ def weak_scaling(
     omega: float = 1.5,
     iters: int = 50,
     device_counts=None,
-    impl: str = "auto",
 ) -> list[ScalePoint]:
     """Fixed per-device block, growing mesh; returns one point per count.
+    Each point times ``iters`` iterations of the explicit shard_map step
+    (parallel/dist.py)."""
+    from ..parallel.decomp import auto_division
+    from ..solvers.steps import parse_name
 
-    ``impl='auto'`` measures the production path: the fused per-block
-    Pallas step (dist_fused) when it builds, else the explicit shard_map
-    jnp step.  ``impl='jnp'`` pins the portable path."""
     devices = jax.devices()
     if device_counts is None:
         device_counts = [n for n in (1, 2, 4, 8) if n <= len(devices)]
+    _, is_maf = parse_name(solver)
     points = []
     for n in device_counts:
-        from ..parallel import dist_fused
-        from ..parallel.decomp import auto_division
-
         # grow the cube so each device holds a block^3 region
         div = auto_division(n, (10**9, 10**9, 10**9))
         gsize = tuple(block * d for d in div)
-        from ..solvers.steps import parse_name
-
-        kind, is_maf = parse_name(solver)
-        line = kind in ("pcr", "pcr_rb")
         cm = make_mesh(gsize, devices=devices[:n], div=div)
         prob = Problem.poisson_cube((gsize[1], gsize[2], gsize[0]), maf=is_maf)
-
-        step = None
-        on_tpu = jax.default_backend() == "tpu"
-        # fused kernels off-TPU run in interpret mode — meaningless to time;
-        # 'fused' forces them anyway (functional check)
-        if (impl == "fused" or (impl != "jnp" and on_tpu)) and (
-            kind in ("jacobi", "sor2sma", "pcr", "pcr_rb")
-            and (not is_maf or line)
-        ):
-            step = dist_fused.make_dist_fused_step(
-                prob, cm, kind, omega, b_is_zero=prob.rhs_is_inner_zero(),
-                interpret=not on_tpu,
-            )
-        if step is not None:
-            step_impl = "fused"
-            to_state = (
-                dist_fused.to_line_block_state if line
-                else dist_fused.to_block_state
-            )
-            x = to_state(cm, prob.x0)
-            b = to_state(cm, prob.rhs)
-        else:
-            step_impl = "jnp"
-            step = make_dist_step(prob, cm, solver, omega)
-            x = cm.shard(prob.x0)
-            b = cm.shard(prob.rhs)
+        step = make_dist_step(prob, cm, solver, omega)
+        x = cm.shard(prob.x0)
+        b = cm.shard(prob.rhs)
 
         def run(x, b):
             def body(_, xx):
@@ -113,7 +80,7 @@ def weak_scaling(
         points.append(
             ScalePoint(
                 n_devices=n, div=div, global_shape=gsize, iters=iters,
-                seconds=dt, step_impl=step_impl,
+                seconds=dt,
             )
         )
     return points

@@ -9,42 +9,14 @@ from __future__ import annotations
 
 from typing import Optional
 
-import dataclasses
-
 import jax
-import jax.numpy as jnp
 
 from ..core.problem import Problem
+from . import dispatch
 from . import steps as steps_mod
 from .driver import EPS_DEFAULT, SolveResult, run_iterative
 
 SOLVERS = steps_mod.ALL_SOLVERS
-
-# solvers with a fused single-HBM-pass Pallas kernel
-# (pallas_kernels/sweeps.py for the point sweeps, pallas_kernels/pcr.py for
-# the line solvers)
-FUSED = ("jacobi", "sor2sma", "pcr", "pcr_rb")
-
-
-def _sharded(problem: Problem) -> bool:
-    return getattr(problem.x0, "is_fully_addressable", True) is False or (
-        hasattr(problem.x0, "sharding")
-        and getattr(problem.x0.sharding, "num_devices", 1) > 1
-    )
-
-
-def _can_fuse(problem: Problem, kind: str, is_maf: bool, impl: str) -> bool:
-    if impl == "jnp" or kind not in FUSED:
-        return False
-    if is_maf and problem.mc is None:
-        return False
-    if problem.grid.dtype != jnp.float32:
-        return False
-    if _sharded(problem):
-        return False  # sharded runs go through the distributed steps
-    if impl == "pallas":
-        return True
-    return jax.default_backend() == "tpu"
 
 
 def _initial_x(step, problem: Problem):
@@ -88,64 +60,43 @@ def solve(
     impl: str = "auto",
     check_every: Optional[int] = None,
 ) -> SolveResult:
-    """``impl``: 'auto' (fused Pallas kernels on TPU, XLA elsewhere),
-    'pallas' (force fused kernels; interpreted off-TPU), 'jnp' (force XLA).
-    ``check_every``: convergence-check granularity (None = auto; see
-    driver.run_iterative — counts/histories are granularity-independent)."""
-    kind, is_maf = steps_mod.parse_name(solver)
+    """``impl``: 'auto' (the red-black Triton kernel where solvers/dispatch.py
+    picks it, XLA elsewhere), 'pallas' (the kernel, or ValueError where it
+    cannot run), 'jnp' (XLA).  ``check_every``: convergence-check
+    granularity (None = dispatch default; counts and histories do not
+    depend on it)."""
+    kind, _ = steps_mod.parse_name(solver)
     g = problem.grid
+    # the one check of ``impl``: "pallas" raises here for every solver the
+    # kernel does not run (the Krylov preconditioners included)
+    use_kernel = dispatch.use_rb_kernel(
+        kind, g.dtype, impl=impl, sharded=dispatch.is_sharded(problem.x0),
+        standard_mask=problem.msk_is_standard(),
+    )
 
     if kind == "pbicgstab":
         from .fused_cache import get_bicgstab
 
-        run = get_bicgstab(
-            problem, solver, omega, precond,
-            "jnp" if _sharded(problem) else impl,
-        )
+        run = get_bicgstab(problem, solver, omega, precond)
         result = run(problem.x0, problem.rhs, itr_max, eps, g.res_normal)
     elif kind == "cg":
         from .fused_cache import get_cg
 
-        run = get_cg(
-            problem, omega, precond, "jnp" if _sharded(problem) else impl
-        )
+        run = get_cg(problem, omega, precond)
         result = run(problem.x0, problem.rhs, itr_max, eps, g.res_normal)
-    elif _can_fuse(problem, kind, is_maf, impl):
-        from .fused_cache import get_fused_step, pad_unpad
-
-        interpret = jax.default_backend() != "tpu"
-        step = get_fused_step(
-            kind, g, omega, problem.mc if is_maf else None, interpret,
-            b_is_zero=problem.rhs_is_inner_zero(),
-        )
-        if step is None:  # no viable tiling — fall back
-            from .fused_cache import get_jnp_step
-
-            step = get_jnp_step(problem, solver, omega)
-            result = run_iterative(
-                step, problem.x0, problem.rhs, g.res_normal, itr_max, eps,
-                check_every=check_every,
-            )
-        else:
-            # the layout converters fold into the loop executable (one
-            # dispatch per solve); attach once so the jit static key is a
-            # stable identity across solves
-            if not hasattr(step, "_pre"):
-                step._pre, step._post = pad_unpad(kind, g, step)
-            result = run_iterative(
-                step, problem.x0, problem.rhs, g.res_normal,
-                itr_max, eps, check_every=check_every,
-                pre=step._pre, post=step._post,
-            )
     else:
-        from .fused_cache import get_jnp_step
+        from .fused_cache import get_jnp_step, get_rb_step
 
-        step = get_jnp_step(problem, solver, omega)
+        if use_kernel:
+            step = get_rb_step(problem, solver, omega)
+        else:
+            step = get_jnp_step(problem, solver, omega)
         result = run_iterative(
             step, _initial_x(step, problem), problem.rhs, g.res_normal,
             itr_max, eps, check_every=check_every,
-            # steps that run on their own state layout (psor's skewed
-            # diagonal layout, ops/psor_scan.py) carry converters
+            # steps that run on their own state layout (the packed
+            # red-black kernel, psor's skewed diagonal layout) carry
+            # converters, folded into the loop's one executable
             pre=getattr(step, "_pre", None),
             post=getattr(step, "_post", None),
         )

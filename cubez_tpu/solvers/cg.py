@@ -27,7 +27,7 @@ import jax.numpy as jnp
 from ..core.problem import Problem
 from ..ops import blas
 from . import steps as steps_mod
-from .bicgstab import FLT_MIN, PRECOND_SWEEPS, _fused_precon
+from .bicgstab import FLT_MIN, PRECOND_SWEEPS
 from .driver import SolveResult, _res_dtype, fixed_sweeps
 
 # preconditioners that are symmetric for the constant-coefficient operator
@@ -36,10 +36,7 @@ from .driver import SolveResult, _res_dtype, fixed_sweeps
 SYMMETRIC_PRECONDS = ("jacobi", "fd")
 
 
-def make_cg(
-    problem: Problem, omega_accel: float, precond: str | None,
-    impl: str = "auto", cmesh=None,
-):
+def make_cg(problem: Problem, omega_accel: float, precond: str | None):
     """Returns solve(x0, b, itr_max, eps, res_normal) -> SolveResult.
 
     Constant-coefficient only: the MAF operator is pivot-row-scaled
@@ -49,7 +46,6 @@ def make_cg(
             "cg supports the constant-coefficient operator only "
             "(the pivot-scaled MAF operator is nonsymmetric); use pbicgstab_maf"
         )
-    g = problem.grid
     msk = problem.msk
 
     if precond and precond.lower() not in ("none", "copy"):
@@ -61,13 +57,8 @@ def make_cg(
                 f"'{precond}' is nonsymmetric — use pbicgstab with it"
             )
         nsw = 1 if kind == "fd" else PRECOND_SWEEPS
-        precon = _fused_precon(problem, precond, omega_accel, impl, cmesh)
-        if precon is None:
-            pstep = steps_mod.make_step(problem, precond, omega_accel,
-                                        b_arg_is_problem_rhs=False)
-            precon = lambda bb: fixed_sweeps(
-                pstep, jnp.zeros_like(bb), bb, nsw
-            )
+        pstep = steps_mod.make_step(problem, precond, omega_accel)
+        precon = lambda bb: fixed_sweeps(pstep, jnp.zeros_like(bb), bb, nsw)
         # the sweeps approximate calc_ax^{-1}; they are linear in bb (zero
         # initial guess), so -precon(-r) == precon(r) and the negated-system
         # preconditioner needs no sign plumbing

@@ -1,197 +1,83 @@
-"""Cache of built fused-Pallas steps.
+"""Caches of built steps and Krylov runners.
 
-Steps are Python closures; ``jax.jit`` keys its trace cache on the closure's
-identity, so rebuilding a step per solve() call forced a full re-trace and
-(on TPU) a multi-second recompile every time.  This cache returns the same
-step object for the same parameters, making repeated solves reuse the
-compiled executable (observed: 2.4 s -> 0.09 s for a 128^3 sor2sma solve).
-
-MAF steps embed the metric tables; they are cached per MafCoeffs *object*
-(a strong reference is kept so the id key stays valid).
+Steps are Python closures; ``jax.jit`` keys its trace cache on the
+closure's identity, so rebuilding a step per solve() call forces a full
+re-trace and recompile every time.  These caches return the same object
+for the same problem and parameters, so repeated solves reuse the
+compiled executable.  Entries are keyed by the problem object's identity
+and keep a strong reference to it, so the key stays valid.
 """
 
 from __future__ import annotations
 
 
-_CACHE: dict = {}
-
-
-def get_fused_step(kind: str, grid, omega: float, mc, interpret: bool,
-                   b_is_zero: bool = False, allow_pair: bool = True):
-    """Build-or-fetch the fused step for (kind, grid, omega, mc, interpret,
-    b_is_zero).
-
-    Returns None when no viable tiling exists (negative results are cached
-    too).  The returned step operates on the kind's padded state layout.
-    ``b_is_zero`` skips streaming the RHS (valid when b == 0 on all inner
-    nodes); the step still accepts (xp, bp) and ignores bp.
-    ``allow_pair=False`` forbids multi-iteration (temporally-blocked)
-    steps — the BiCGSTAB preconditioner needs it under interpret mode,
-    where an interpret pallas_call (a closed_call) inside the Krylov
-    loop's lax.cond trips a jax lowering-cache KeyError; on the TPU the
-    kernel is a custom call and the pair is used (bitwise-equal sweeps,
-    verified iteration-count parity on hardware).
-    """
-    key = (
-        kind,
-        grid.shape_kij,
-        str(grid.dtype),
-        float(omega),
-        bool(interpret),
-        bool(b_is_zero),
-        bool(allow_pair),
-        None if mc is None else id(mc),
-    )
-    ent = _CACHE.get(key)
-    if ent is not None and (mc is None or ent[0] is mc):
+def _cached(cache: dict, problem, key, build):
+    ent = cache.get(key)
+    if ent is not None and ent[0] is problem:
         return ent[1]
-
-    if kind in ("pcr", "pcr_rb"):
-        # MXU line solvers (matmul / fast-diagonalization).  pcr_rb prefers
-        # the color-packed layout (rblines.py): each color's dense solve
-        # covers only its own lines, halving the MXU work of the masked
-        # full-plane form in lines.py.  The PCR-stage kernels remain in
-        # pallas_kernels/pcr.py.
-        step = None
-        if kind == "pcr_rb":
-            from ..pallas_kernels import rblines
-
-            step = rblines.make_rbl_step(
-                grid.shape_kij, grid.dtype, omega=omega, mc=mc,
-                b_is_zero=b_is_zero, interpret=interpret,
-            )
-        if step is None:
-            from ..pallas_kernels import lines as fk
-
-            step = fk.make_line_step(
-                "pcr_j" if kind == "pcr" else "pcr_rb",
-                grid.shape_kij, grid.dtype, omega=omega, mc=mc,
-                b_is_zero=b_is_zero, interpret=interpret,
-            )
-    elif kind == "sor2sma":
-        # packed red-black layout: dense per-color compute (measured on v5e
-        # the sweep is VPU-bound, so rbpack's halved vector work beats both
-        # the interleaved kernel and sweeps2x's halved HBM traffic).  The
-        # packed single sweep is HBM-bound, so the temporally-blocked
-        # packed pair (two iterations per HBM pass) goes first.  MAF uses
-        # the packed single sweep with even/odd-split metric tables.
-        from ..pallas_kernels import rbpack
-
-        step = None
-        if allow_pair and b_is_zero and mc is None:
-            # deepest temporal block first: n iterations per HBM pass
-            # (zero-RHS only; sweeps2x._sweepnx_kernel).  Measured v5e:
-            # the sweep is VPU-bound beyond n~4 so returns flatten —
-            # 128^3 pair 122 / n=4 145 / n=6 147 Gcells/s, 256^3 n=4
-            # 141 / n=6 145 — but n=6 stays measurably ahead where its
-            # windows fit.  The builders return None where the windows
-            # don't fit VMEM (512^3 needs kt=8 and stays on the pair:
-            # measured neutral at best under a near-limit VMEM budget).
-            # MAF skips the chain entirely: its pair update is VPU-bound,
-            # so deeper blocking never pays — measured us/iter 128^3
-            # pair 24.9 / 3x 26.3 / 4x 25.9 / 6x 39.2, 256^3 pair 172.5 /
-            # 3x 209.7 / 4x 178.3 (BENCH_RESULTS "MAF point-sweep
-            # temporal blocking") — the pair below is its production form
-            # (deeper MAF windows remain available and parity-tested,
-            # sweeps2x n <= 7 via the 16-row guard band).
-            for nx in (6, 4, 3):
-                step = rbpack.make_packed_sweepnx(
-                    grid.shape_kij, grid.dtype, omega=omega, n=nx, mc=mc,
-                    interpret=interpret,
-                )
-                if step is not None:
-                    break
-        if step is None and allow_pair:
-            step = rbpack.make_packed_sweep2x(
-                grid.shape_kij, grid.dtype, omega=omega, mc=mc,
-                b_is_zero=b_is_zero, interpret=interpret,
-            )
-        if step is None:
-            step = rbpack.make_packed_sweep(
-                grid.shape_kij, grid.dtype, omega=omega, mc=mc,
-                b_is_zero=b_is_zero, interpret=interpret,
-            )
-        if step is None:
-            from ..pallas_kernels import sweeps as fk
-
-            step = fk.make_fused_sweep(
-                kind, grid.shape_kij, grid.dtype, omega=omega, mc=mc,
-                b_is_zero=b_is_zero, interpret=interpret,
-            )
-    else:
-        # jacobi stays on the single fused sweep: its dense simultaneous
-        # update is COMPUTE-bound (~15 us/iter at 128^3 on v5e), so a
-        # temporally-blocked pair was measured neutral (15.3 vs 15.4
-        # us/iter; 16.6 vs 17.5 with a streamed RHS) and is not kept
-        from ..pallas_kernels import sweeps as fk
-
-        step = fk.make_fused_sweep(
-            kind, grid.shape_kij, grid.dtype, omega=omega, mc=mc,
-            b_is_zero=b_is_zero, interpret=interpret,
-        )
-    _CACHE[key] = (mc, step)
-    return step
+    value = build()
+    cache[key] = (problem, value)
+    return value
 
 
 _BICG_CACHE: dict = {}
 
 
-def get_bicgstab(problem, solver: str, omega: float, precond, impl: str):
-    """Build-or-fetch the jitted BiCGSTAB runner for this problem object
-    (keyed by object identity; a strong reference keeps the key valid)."""
+def get_bicgstab(problem, solver: str, omega: float, precond):
+    """Build-or-fetch the jitted BiCGSTAB runner for this problem object."""
     from .bicgstab import make_bicgstab
 
-    key = (id(problem), solver, float(omega), precond, impl)
-    ent = _BICG_CACHE.get(key)
-    if ent is not None and ent[0] is problem:
-        return ent[1]
-    run = make_bicgstab(problem, solver, omega, precond, impl=impl)
-    _BICG_CACHE[key] = (problem, run)
-    return run
+    key = (id(problem), solver, float(omega), precond)
+    return _cached(
+        _BICG_CACHE, problem, key,
+        lambda: make_bicgstab(problem, solver, omega, precond),
+    )
 
 
-def get_cg(problem, omega: float, precond, impl: str):
-    """Build-or-fetch the jitted CG runner (same identity-keyed caching as
-    get_bicgstab; the shared _BICG_CACHE is keyed by solver name)."""
+def get_cg(problem, omega: float, precond):
+    """Build-or-fetch the jitted CG runner (the shared cache is keyed by
+    solver name)."""
     from .cg import make_cg
 
-    key = (id(problem), "cg", float(omega), precond, impl)
-    ent = _BICG_CACHE.get(key)
-    if ent is not None and ent[0] is problem:
-        return ent[1]
-    run = make_cg(problem, omega, precond, impl=impl)
-    _BICG_CACHE[key] = (problem, run)
-    return run
+    key = (id(problem), "cg", float(omega), precond)
+    return _cached(
+        _BICG_CACHE, problem, key, lambda: make_cg(problem, omega, precond)
+    )
 
 
-_JNP_CACHE: dict = {}
+_STEP_CACHE: dict = {}
 
 
 def get_jnp_step(problem, solver: str, omega: float):
-    """Build-or-fetch the jnp (XLA) step for this problem object — same
-    identity-keyed caching so run_iterative's jit reuses the executable."""
+    """Build-or-fetch the jnp (XLA) step for this problem object."""
     from .steps import make_step
 
     key = (id(problem), solver, float(omega))
-    ent = _JNP_CACHE.get(key)
-    if ent is not None and ent[0] is problem:
-        return ent[1]
-    step = make_step(problem, solver, omega)
-    _JNP_CACHE[key] = (problem, step)
-    return step
+    return _cached(
+        _STEP_CACHE, problem, key, lambda: make_step(problem, solver, omega)
+    )
 
 
-def pad_unpad(kind: str, grid, step=None):
-    """(pad, unpad) converters for the kind's state layout.  A step that
-    carries its own layout (rbpack) exposes ``.pad`` / ``.unpad``."""
-    if step is not None and hasattr(step, "pad"):
-        return step.pad, step.unpad
-    if kind in ("pcr", "pcr_rb"):
-        from ..pallas_kernels import lines as fk
+def get_rb_step(problem, solver: str, omega: float):
+    """Build-or-fetch the red-black Triton kernel step for this problem
+    object, with its layout converters attached as ``_pre`` / ``_post``
+    (stable identities, so the loop's jit reuses its executable)."""
+    from ..pallas_kernels import rbsweep
+    from .steps import _named, parse_name
 
-        return fk.to_line4_layout, lambda a: fk.from_line4_layout(
-            a, grid.shape_kij
+    def build():
+        _, is_maf = parse_name(solver)
+        if is_maf and problem.mc is None:
+            raise ValueError("MAF solver requested but Problem has no MafCoeffs")
+        g = problem.grid
+        kstep = rbsweep.make_rb_step(
+            g.shape_kij, g.dtype, omega=omega,
+            mc=problem.mc if is_maf else None,
+            b_is_zero=problem.rhs_is_inner_zero(),
         )
-    from ..pallas_kernels import sweeps as fk
+        step = _named(solver, kstep)
+        step._pre, step._post = kstep.pad, kstep.unpad
+        return step
 
-    return fk.pad_k2, lambda a: fk.unpad_k2(a, grid.shape_kij)
+    key = (id(problem), solver, float(omega), "rb")
+    return _cached(_STEP_CACHE, problem, key, build)

@@ -8,7 +8,7 @@ independent of grid size — the classic algorithmic win this platform adds
 on top of kernel-level parity (documented as an extension in README/PARITY,
 like utils/checkpoint.py).
 
-Design (TPU-first):
+Design:
   * Everything is static-shaped dense array math per level, so the whole
     V-cycle unrolls into one XLA executable: smoothing is the existing
     masked red-black sweep (ops/stencil.py), transfer operators are
@@ -222,9 +222,6 @@ def make_mg_step(
     nu1: int = 1,
     nu2: int = 1,
     coarse_sweeps: int = 16,
-    smoother: str = "auto",
-    b_is_zero: bool = False,
-    interpret: bool = False,
     maf: bool = False,
     fmg: bool = False,
     bc_shell=None,
@@ -236,14 +233,6 @@ def make_mg_step(
     choice; over-relaxation trades smoothing for sweeping and is NOT the
     right default here, unlike the standalone sor2sma solver).
 
-    ``smoother``: 'xla' (masked jnp sweeps everywhere) or 'fused' (the
-    finest level smooths through the fused Pallas red-black kernel,
-    pallas_kernels/sweeps.py — same math as the XLA sweep to within FMA
-    contraction, <1e-6 per sweep like the impl='pallas' solvers; coarse
-    levels are small and stay XLA).  'auto' picks 'fused' on the TPU
-    backend for f32.  ``b_is_zero`` lets the fused smoother skip streaming
-    the RHS (one less HBM pass; the standard Laplace problem qualifies).
-
     ``maf``: variable-coefficient (metric) cycle.  Each level's operator is
     a MafCoeffs built from the COARSENED coordinate arrays
     (cz_maf.f90:68-101 metrics on the level's actual node spacings), the
@@ -252,8 +241,6 @@ def make_mg_step(
     NO factor 4 (fine equation: dd*x - rp = b; defect: dd*e - rp(e) = r).
     The stopping residual is the omega=1 Jacobi-equivalent update r/dd.
     """
-    import jax
-
     from ..ops import maf as maf_ops
 
     coords = (grid.zc, grid.xc, grid.yc) if maf else None
@@ -267,31 +254,7 @@ def make_mg_step(
             return (b - ax) * lv.msk
         return calc_rk(x, b, lv.msk)
 
-    fused0 = None
-    if smoother == "fused" or (
-        smoother == "auto"
-        and jax.default_backend() == "tpu"
-        and grid.dtype == jnp.float32
-    ):
-        from ..pallas_kernels import sweeps as fused_sweeps
-
-        fused0 = fused_sweeps.make_fused_sweep(
-            "sor2sma", grid.shape_kij, grid.dtype, omega=omega,
-            b_is_zero=b_is_zero, interpret=interpret,
-            mc=levels[0].mc if maf else None,
-        )
-        if fused0 is None and smoother == "fused":
-            raise ValueError("no viable fused-smoother tiling for this grid")
-
-    def smooth(x, b, lv: _Level, sweeps: int, li: int):
-        if li == 0 and fused0 is not None:
-            from ..pallas_kernels.sweeps import pad_k2, unpad_k2
-
-            xp = pad_k2(x)
-            bp = xp if b_is_zero else pad_k2(b)  # ignored when b_is_zero
-            for _ in range(sweeps):
-                xp, _ = fused0(xp, bp)
-            return unpad_k2(xp, lv.shape)
+    def smooth(x, b, lv: _Level, sweeps: int):
         for _ in range(sweeps):
             if maf:
                 x, _ = maf_ops.sor2sma_maf_sweep(
@@ -304,8 +267,8 @@ def make_mg_step(
     def vcycle(x, b, li: int):
         lv = levels[li]
         if li == len(levels) - 1:
-            return smooth(x, b, lv, coarse_sweeps, li)
-        x = smooth(x, b, lv, nu1, li)
+            return smooth(x, b, lv, coarse_sweeps)
+        x = smooth(x, b, lv, nu1)
         r = residual(x, b, lv)
         coarse = levels[li + 1]
         bc = restrict_fw(r, coarse.shape) * coarse.msk
@@ -313,7 +276,7 @@ def make_mg_step(
             bc = four * bc
         ec = vcycle(jnp.zeros(coarse.shape, x.dtype), bc, li + 1)
         x = x + prolong(ec, lv.shape) * lv.msk
-        return smooth(x, b, lv, nu2, li)
+        return smooth(x, b, lv, nu2)
 
     def step(x, b):
         x = vcycle(x, b, 0)
@@ -345,7 +308,7 @@ def make_mg_step(
                 bs_.append(bl)
             li = len(levels) - 1
             x = bcs[li] + jnp.zeros(levels[li].shape, b.dtype)
-            x = smooth(x, bs_[li], levels[li], coarse_sweeps, li)
+            x = smooth(x, bs_[li], levels[li], coarse_sweeps)
             for li in range(len(levels) - 2, -1, -1):
                 lv = levels[li]
                 # trilinear interpolation of the full coarse solution —
@@ -358,8 +321,8 @@ def make_mg_step(
         step.fmg_init = fmg_init
 
     # one "iteration" is a whole V-cycle: its cost dwarfs the convergence
-    # check, and the driver's TPU default chunk of 16 would run up to 15
-    # surplus cycles on a solve that converges in ~6 (run_iterative
-    # consults this hint for both solve() and solve_dist())
+    # check, and a default chunk of 16 would run up to 15 surplus cycles
+    # on a solve that converges in ~6 (run_iterative consults this hint
+    # for both solve() and solve_dist())
     step.check_every_default = 2
     return step

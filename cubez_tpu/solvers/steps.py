@@ -11,8 +11,7 @@ Solver-name parity with the reference CLI (cz_Evaluate.cpp:684-803):
 pcr / pcr_eda / pcr_esa are the same serial line-Gauss-Seidel math in three
 memory layouts (identical histories per doc/Memo.md:134) and resolve to one
 wavefront-exact step; pcr_j_esa is the Jacobi-update form and resolves to
-the fused line-Jacobi step; pcr_rb[_esa] resolve to the fused red-black
-step.  See _CANON below for the evidence.
+the line-Jacobi step; pcr_rb[_esa] resolve to the red-black line step.  See _CANON below for the evidence.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ from ..ops import stencil
 # line-Jacobi requires omega <~ 1.0 (verified with the serial oracle,
 # tools/ref_oracle.cpp: diverges at 1.1).  Kinds:
 #   pcr_gs — wavefront line-Gauss-Seidel, exactly the serial reference pcr
-#   pcr    — line-Jacobi full-plane pass (reference pcr_j_esa), fused-fast
+#   pcr    — line-Jacobi full-plane pass (reference pcr_j_esa)
 #   pcr_rb — red-black line relaxation (deterministic AND fast; same
 #            iteration counts as pcr_gs: 142 vs 140 at 32^3 omega=1.5)
 _CANON = {
@@ -104,22 +103,12 @@ def _require_standard_mask(problem: Problem, name: str):
         )
 
 
-def make_step(problem: Problem, name: str, omega: float, color_offset: int = 0,
-              b_arg_is_problem_rhs: bool = True):
+def make_step(problem: Problem, name: str, omega: float, color_offset: int = 0):
     """Build step(x, b) -> (x_new, r2) for any relaxation/line solver.
 
     Steps are wrapped in a jax.named_scope with the solver name so device
-    profiles group per-solver kernels like the reference's PMlib labels.
-
-    ``b_arg_is_problem_rhs``: the caller will drive the step with the
-    problem's own rhs (the solve drivers) — enables rhs-derived kernel
-    hints like the fused smoother's b_is_zero.  Preconditioner builders
-    MUST pass False: they drive the step with Krylov vectors as ``b``, and
-    a b_is_zero-specialized kernel would silently ignore them."""
-    step = _named(
-        name, _make_step(problem, name, omega, color_offset,
-                         b_arg_is_problem_rhs)
-    )
+    profiles group per-solver kernels like the reference's PMlib labels."""
+    step = _named(name, _make_step(problem, name, omega, color_offset))
     kind, _ = parse_name(name)
     if kind in ("psor", "pcr_gs"):
         # wavefront-exact sweeps cost O(N) sequential passes each — the
@@ -130,8 +119,7 @@ def make_step(problem: Problem, name: str, omega: float, color_offset: int = 0,
     return step
 
 
-def _make_step(problem: Problem, name: str, omega: float, color_offset: int = 0,
-               b_arg_is_problem_rhs: bool = True):
+def _make_step(problem: Problem, name: str, omega: float, color_offset: int = 0):
     kind, is_maf = parse_name(name)
     if kind == "pbicgstab":
         raise ValueError("pbicgstab is a driver, not a sweep; see bicgstab.py")
@@ -181,16 +169,8 @@ def _make_step(problem: Problem, name: str, omega: float, color_offset: int = 0,
                     "mg_maf requires MafCoeffs built from the grid's own "
                     "coordinate arrays"
                 )
-        # sharded (auto-SPMD) runs must keep the pure-jnp smoother: GSPMD
-        # cannot partition a Pallas custom call
-        sharded = (
-            getattr(problem.x0, "sharding", None) is not None
-            and getattr(problem.x0.sharding, "num_devices", 1) > 1
-        )
         return make_mg_step(
             g, omega=omega,
-            smoother="xla" if sharded else "auto",
-            b_is_zero=b_arg_is_problem_rhs and problem.rhs_is_inner_zero(),
             maf=is_maf,
             fmg=(kind == "fmg"),
             # FMG imposes the PROBLEM's Dirichlet shell at every level
@@ -201,8 +181,8 @@ def _make_step(problem: Problem, name: str, omega: float, color_offset: int = 0,
 
     # Standard-mask problems synthesize the inner mask from iota INSIDE
     # the step: a closed-over (K, I, J) mask array is embedded in the
-    # jitted executable as a constant (536 MB at 512^3 — rejected by a
-    # remote compile service, and an extra HBM stream besides); the iota
+    # jitted executable as a constant (536 MB at 512^3, and an extra
+    # device-memory stream besides); the iota
     # form has identical values, so results are bitwise unchanged.
     # Color masks depend only on the shape and always use the iota form.
     # msk_is_standard (not identity alone) so resharded copies of the

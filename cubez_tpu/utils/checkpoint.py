@@ -101,8 +101,7 @@ def resume_dist(problem, cmesh, ckpt: Checkpoint, itr_max: int, *,
 
     The checkpoint stores the canonical global (K, I, J) field, so a
     solve may be checkpointed on one mesh (or serially) and resumed on
-    any other — solve_dist re-shards and re-packs the state for the
-    production per-block path."""
+    any other — solve_dist re-shards the state over the mesh."""
     from ..parallel.api import solve_dist
 
     prob, args, name = _continue(problem, ckpt, itr_max, solver, omega, eps)

@@ -3,7 +3,10 @@
 The CubeZ acceptance ritual: each solver's iteration count, final residual,
 analytic max error, and throughput (Readme.md:384-403 invocations).
 
-    python examples/run_all_solvers.py [--tpu]
+    python examples/run_all_solvers.py
+
+Runs on JAX's default device (the GPU where there is one); set
+JAX_PLATFORMS=cpu to run on the CPU.
 """
 
 import pathlib
@@ -13,10 +16,6 @@ import time
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import jax
-
-if "--tpu" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp
 
 from cubez_tpu import Problem, max_error, solve

@@ -37,7 +37,7 @@ extern "C" {
 // Find the best (d0, d1, d2) factorization of nproc for a (g0, g1, g2) grid.
 // Scoring identical to parallel/decomp.py: minimize (ceil-block volume,
 // halo surface of a block, max/min extent ratio); ties prefer more division
-// on the last axis (cheap TPU lane-axis halos), then the middle.
+// on the last axis, then the middle.
 // Returns 0 on success, -1 if no factorization fits (axis counts < divisions).
 int czx_auto_division(int64_t nproc, const int64_t g[3], int64_t out_div[3]) {
   double best_vol = 0, best_surf = 0, best_cube = 0;

@@ -47,8 +47,8 @@ def test_checkpoint_shape_mismatch_rejected(tmp_path):
 
 def test_sharded_checkpoint_resume_matches_straight(tmp_path):
     """save -> load -> resume on the 8-device mesh equals the
-    uninterrupted sharded solve (the production dist-packed path is
-    serial-exact, so the split is bitwise)."""
+    uninterrupted sharded solve (the per-color cadence is serial-exact,
+    so the split is bitwise)."""
     import jax
 
     from cubez_tpu.parallel.api import solve_dist
@@ -59,13 +59,13 @@ def test_sharded_checkpoint_resume_matches_straight(tmp_path):
     cm = make_mesh((n, n, n), devices=jax.devices("cpu")[:8], div=(2, 2, 2))
 
     straight = solve_dist(prob, cm, "sor2sma", omega=1.5, itr_max=2000,
-                          eps=1e-5, impl="pallas", sync="pack")
+                          eps=1e-5, sync="color")
     assert straight.iters == 199  # == the serial oracle
 
-    # split at a multiple of every window depth so the returned field has
+    # split at a multiple of the check cadence so the returned field has
     # run exactly the reported number of sweeps
     part1 = solve_dist(prob, cm, "sor2sma", omega=1.5, itr_max=48,
-                       eps=1e-5, impl="pallas", sync="pack")
+                       eps=1e-5, sync="color")
     assert part1.iters == 48
     p = tmp_path / "ck_sharded.npz"
     checkpoint.save(
@@ -73,8 +73,7 @@ def test_sharded_checkpoint_resume_matches_straight(tmp_path):
         omega=1.5, eps=1e-5, history=part1.history,
     )
     part2 = checkpoint.resume_dist(
-        prob, cm, checkpoint.load(p), itr_max=2000, impl="pallas",
-        sync="pack",
+        prob, cm, checkpoint.load(p), itr_max=2000, sync="color",
     )
     assert part1.iters + part2.iters == straight.iters
     np.testing.assert_array_equal(

@@ -112,7 +112,7 @@ def test_fd_dist_pipeline_no_allgather(maf):
     """The sharded fd step lowers to the shard-local-contraction +
     all-to-all transpose pipeline (solvers/direct.py::make_dist_minv):
     ZERO all-gathers (GSPMD's fallback would insert 3, each moving the
-    global field — SCALING.md 'Distributed fd'), 8 all-to-alls (each
+    global field), 8 all-to-alls (each
     moving only the local block within one mesh axis group), and the
     field result is bitwise-equal to the serial step's."""
     import re

@@ -67,7 +67,7 @@ def test_chunk_clamped_to_itr_max():
     itr_max sweeps even when check_every exceeds it — the returned field
     equals the per-iteration run's, not 'itr_max counted out of a full
     chunk of surplus sweeps' (which silently under-reported the psor/pcr
-    per-iteration rates by ~5x under the TPU default chunk of 16)."""
+    per-iteration rates by ~5x under a default chunk of 16)."""
     prob = Problem.poisson_cube(16)
     step = get_jnp_step(prob, "jacobi", 0.8)
     g = prob.grid

@@ -160,56 +160,6 @@ def test_mg_maf_foreign_coeffs_rejected():
         solve(dataclasses.replace(prob, mc=alien), "mg_maf", 1.0, 10)
 
 
-def test_mg_fused_smoother_matches_xla_nonzero_b():
-    """The preconditioner configuration: the fused fine-level smoother
-    built with b_is_zero=False and driven with a nonzero RHS (BiCGSTAB
-    hands the V-cycle its Krylov vectors as b — bicgstab.py passes
-    b_arg_is_problem_rhs=False).  Guards the pbicgstab+mg TPU path."""
-    prob = Problem.poisson_cube(24)
-    b = (
-        jax.random.normal(jax.random.PRNGKey(0), prob.x0.shape, prob.x0.dtype)
-        * prob.msk
-    )
-    sx = mg.make_mg_step(prob.grid, omega=1.0)  # xla (auto off-TPU)
-    sf = mg.make_mg_step(
-        prob.grid, omega=1.0, smoother="fused", b_is_zero=False,
-        interpret=True,
-    )
-    x1 = x2 = jnp.zeros_like(prob.x0)
-    for _ in range(3):
-        x1, r1 = jax.jit(sx)(x1, b)
-        x2, r2 = jax.jit(sf)(x2, b)
-    assert float(jnp.max(jnp.abs(x1 - x2))) < 1e-6
-    assert float(r1) == pytest.approx(float(r2), rel=1e-4)
-
-
-def test_mg_fused_smoother_matches_xla():
-    """The fused-Pallas fine-level smoother (TPU production path) matches
-    the XLA smoother to FMA-contraction rounding (the same <1e-6/sweep
-    bound test_pallas_sweeps pins for the standalone solvers), and the
-    solve converges identically (same cycle count)."""
-    prob = Problem.poisson_cube(24)
-    sx = mg.make_mg_step(prob.grid, omega=1.0)  # xla (auto off-TPU)
-    sf = mg.make_mg_step(
-        prob.grid, omega=1.0, smoother="fused", b_is_zero=True,
-        interpret=True,
-    )
-    x1, b = prob.x0, prob.rhs
-    x2 = x1
-    for _ in range(2):
-        x1, r1 = jax.jit(sx)(x1, b)
-        x2, r2 = jax.jit(sf)(x2, b)
-    assert float(jnp.max(jnp.abs(x1 - x2))) < 1e-6
-    assert float(r1) == pytest.approx(float(r2), rel=1e-4)
-
-    from cubez_tpu.solvers.driver import run_iterative
-
-    g = prob.grid
-    cx = run_iterative(sx, prob.x0, prob.rhs, g.res_normal, 50)
-    cf = run_iterative(sf, prob.x0, prob.rhs, g.res_normal, 50)
-    assert cx.iters == cf.iters
-
-
 # ---- full multigrid (F-cycle initializer) ----------------------------------
 
 
@@ -289,7 +239,7 @@ def test_mg_dist_matches_serial():
     extents shard unevenly (24^3 coarsens to 13-wide levels), so the
     guarantee is identical iteration counts/residuals and agreement inside
     the algebraic-error ball at the stopping residual — not bitwise fields
-    (the explicit shard_map solvers DO pin bitwise; see test_dist_fused)."""
+    (the explicit shard_map solvers DO pin bitwise; see test_parallel)."""
     from cubez_tpu.parallel import make_mesh, solve_dist
 
     prob = Problem.poisson_cube(24)

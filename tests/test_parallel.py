@@ -139,8 +139,8 @@ def test_overlap_mode_bitwise_vs_sequential():
     n = 16
     prob = Problem.poisson_cube(n, dtype=jnp.float32)
     cm = make_mesh((n, n, n), devices=cpu8(), div=(2, 2, 2))
-    seq = make_dist_step(prob, cm, "sor2sma", 1.5)
-    ovl = make_dist_step(prob, cm, "sor2sma", 1.5, overlap=True)
+    seq = jax.jit(make_dist_step(prob, cm, "sor2sma", 1.5))
+    ovl = jax.jit(make_dist_step(prob, cm, "sor2sma", 1.5, sync="overlap"))
     x_s, x_o = cm.shard(prob.x0), cm.shard(prob.x0)
     b = cm.shard(prob.rhs)
     for _ in range(3):
@@ -167,8 +167,8 @@ def test_dist_maf_line_matches_serial_unsplit_k():
 
 def test_solve_dist_total_all_solvers():
     # every reference solver name must run under solve_dist (the reference
-    # runs all of them multi-rank, cz_Poisson.cpp) — fused, explicit, or
-    # auto-SPMD fallback
+    # runs all of them multi-rank, cz_Poisson.cpp) — explicit shard_map
+    # step or auto-SPMD fallback
     from cubez_tpu.parallel.api import solve_dist
     from cubez_tpu.solvers.steps import ALL_SOLVERS
 
@@ -186,15 +186,159 @@ def test_solve_dist_total_all_solvers():
 
 def test_solve_dist_pbicgstab_fused_block_precond():
     # distributed BiCGSTAB: sharded Krylov vectors (psum dots) with the
-    # preconditioner running the fused per-block sweeps (interpret on CPU)
+    # preconditioner's jnp sweeps partitioned by GSPMD
     from cubez_tpu.parallel.api import solve_dist
 
     n = 16
     prob = Problem.poisson_cube(n, dtype=jnp.float32)
     cm = make_mesh((n, n, n), devices=cpu8(), div=(2, 2, 2))
     r_d = solve_dist(prob, cm, "pbicgstab", omega=1.1, itr_max=50,
-                     precond="sor2sma", impl="pallas")
+                     precond="sor2sma")
     r_s = solve(prob, "pbicgstab", omega=1.1, itr_max=50,
                 precond="sor2sma", impl="jnp")
     assert r_d.res < 1e-5
     assert abs(r_d.iters - r_s.iters) <= 1
+
+
+# ---- the explicit jnp shard_map steps: the multi-device path ---------------
+
+MESHES = [(2, 2, 2), (1, 2, 4), (4, 2, 1), (1, 1, 8)]
+
+
+def _lowsync_rb_oracle(prob, cm, omega):
+    """Reference multi-rank RB-SOR written out independently: ONE halo
+    exchange per iteration (cz_Poisson.cpp:194-215), colors not re-synced
+    in between."""
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from cubez_tpu.ops import stencil
+    from cubez_tpu.parallel.dist import _global_color_masks
+    from cubez_tpu.parallel.halo import exchange_halo, pad_zeros, psum_all
+    from cubez_tpu.parallel.mesh import FIELD_SPEC
+
+    dtype = prob.grid.dtype
+    om = jnp.asarray(omega, dtype)
+
+    def body(xb, bb, mb):
+        xh = exchange_halo(xb)
+        bh = pad_zeros(bb)
+        cm0, cm1 = _global_color_masks(xb.shape, dtype)
+        r2 = jnp.zeros((), dtype)
+        for cmask in (cm0, cm1):
+            dp = stencil.jacobi_delta(xh, bh, pad_zeros(mb * cmask), om)
+            xh = xh + dp
+            r2 = r2 + psum_all(jnp.sum(dp * dp))
+        return xh[1:-1, 1:-1, 1:-1], r2
+
+    fn = shard_map(body, mesh=cm.mesh,
+                   in_specs=(FIELD_SPEC, FIELD_SPEC, FIELD_SPEC),
+                   out_specs=(FIELD_SPEC, P()))
+    return lambda x, b: fn(x, b, cm.shard(prob.msk))
+
+
+@pytest.mark.parametrize("div", MESHES)
+def test_sor2sma_color_step_matches_serial_on_mesh(div):
+    """sync='color' (exchange before each color) is the serial sweep."""
+    n = 16
+    prob = Problem.poisson_cube(n, dtype=jnp.float32)
+    cm = make_mesh((n, n, n), devices=cpu8(), div=div)
+    serial = jax.jit(steps_mod.make_step(prob, "sor2sma", 1.5))
+    dist = jax.jit(make_dist_step(prob, cm, "sor2sma", 1.5, sync="color"))
+    x_s, x_d, b_d = prob.x0, cm.shard(prob.x0), cm.shard(prob.rhs)
+    for _ in range(4):
+        x_s, r_s = serial(x_s, prob.rhs)
+        x_d, r_d = dist(x_d, b_d)
+    assert float(jnp.max(jnp.abs(x_d - x_s))) < 1e-6
+    np.testing.assert_allclose(float(r_d), float(r_s), rtol=1e-5)
+
+
+@pytest.mark.parametrize("div", MESHES[:3])
+def test_sor2sma_iter_step_matches_lowsync_oracle(div):
+    n = 16
+    prob = Problem.poisson_cube(n, dtype=jnp.float32)
+    cm = make_mesh((n, n, n), devices=cpu8(), div=div)
+    step = jax.jit(make_dist_step(prob, cm, "sor2sma", 1.5, sync="iter"))
+    oracle = jax.jit(_lowsync_rb_oracle(prob, cm, 1.5))
+    x1 = x2 = cm.shard(prob.x0)
+    b = cm.shard(prob.rhs)
+    for _ in range(4):
+        x1, r1 = step(x1, b)
+        x2, r2 = oracle(x2, b)
+    assert float(jnp.max(jnp.abs(x1 - x2))) < 1e-6
+    np.testing.assert_allclose(float(r1), float(r2), rtol=1e-5)
+
+
+@pytest.mark.parametrize("maf", [False, True], ids=["const", "maf"])
+def test_iter_equals_color_on_one_block(maf):
+    """On a one-device mesh there are no ghosts to go stale: the
+    one-exchange cadence is the per-color one (to FMA-contraction
+    rounding: the two programs fuse differently)."""
+    n = 16
+    prob = Problem.poisson_cube(n, dtype=jnp.float32, maf=maf)
+    cm = make_mesh((n, n, n), devices=cpu8()[:1], div=(1, 1, 1))
+    name = "sor2sma_maf" if maf else "sor2sma"
+    it = jax.jit(make_dist_step(prob, cm, name, 1.5, sync="iter"))
+    co = jax.jit(make_dist_step(prob, cm, name, 1.5, sync="color"))
+    x1 = x2 = cm.shard(prob.x0)
+    b = cm.shard(prob.rhs)
+    for _ in range(3):
+        x1, r1 = it(x1, b)
+        x2, r2 = co(x2, b)
+    assert float(jnp.max(jnp.abs(x1 - x2))) < 1e-6
+    np.testing.assert_allclose(float(r1), float(r2), rtol=1e-5)
+
+
+@pytest.mark.parametrize("div", MESHES[:3])
+def test_solve_dist_count_equals_serial(div):
+    from cubez_tpu import max_error
+    from cubez_tpu.parallel.api import solve_dist
+
+    n = 16
+    prob = Problem.poisson_cube(n, dtype=jnp.float32)
+    cm = make_mesh((n, n, n), devices=cpu8(), div=div)
+    r = solve_dist(prob, cm, "sor2sma", omega=1.5, itr_max=2000)
+    rs = solve(prob, "sor2sma", omega=1.5, itr_max=2000, impl="jnp")
+    assert r.res < 1e-5 and r.iters == rs.iters
+    assert r.x.shape == prob.grid.shape_kij
+    assert max_error(prob.grid, r.x) < 5e-3
+
+
+def test_solve_dist_pcr_rb_converges():
+    from cubez_tpu import max_error
+    from cubez_tpu.parallel.api import solve_dist
+
+    n = 16
+    prob = Problem.poisson_cube(n, dtype=jnp.float32)
+    cm = make_mesh((n, n, n), devices=cpu8(), div=(2, 2, 2))
+    r = solve_dist(prob, cm, "pcr_rb", omega=1.5, itr_max=2000)
+    assert r.res < 1e-5
+    assert max_error(prob.grid, r.x) < 5e-3
+
+
+def test_solve_dist_iter_cadence_converges():
+    from cubez_tpu.parallel.api import solve_dist
+
+    n = 16
+    prob = Problem.poisson_cube(n, dtype=jnp.float32)
+    cm = make_mesh((n, n, n), devices=cpu8(), div=(2, 2, 2))
+    r = solve_dist(prob, cm, "sor2sma", omega=1.0, itr_max=4000, sync="iter")
+    assert r.res < 1e-5
+
+
+def test_solve_dist_rejects_unknown_sync():
+    from cubez_tpu.parallel.api import solve_dist
+
+    prob = Problem.poisson_cube(8)
+    cm = make_mesh((8, 8, 8), devices=cpu8()[:2], div=(1, 1, 2))
+    with pytest.raises(ValueError, match="sync"):
+        solve_dist(prob, cm, "sor2sma", omega=1.5, itr_max=5, sync="pack")
+
+
+def test_solve_dist_rejects_sync_without_a_step():
+    from cubez_tpu.parallel.api import solve_dist
+
+    prob = Problem.poisson_cube(8)
+    cm = make_mesh((8, 8, 8), devices=cpu8()[:2], div=(1, 1, 2))
+    with pytest.raises(NotImplementedError, match="sync='iter'"):
+        solve_dist(prob, cm, "pcr_rb", omega=1.5, itr_max=5, sync="iter")

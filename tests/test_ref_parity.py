@@ -76,7 +76,7 @@ def test_pbicgstab_history_parity_f64():
 
 def test_reference_128_iteration_counts_checked_in():
     """Checked-in 128^3 reference histories: iteration counts the framework
-    must reproduce on TPU (compared live in BENCH_RESULTS.md)."""
+    must reproduce on the card (compared live by chip_smoke.py)."""
     expect = {
         "f32_sor2sma_128_w1.5.txt": 1813,
         "f64_sor2sma_128_w1.5.txt": 1813,
@@ -157,9 +157,9 @@ def test_pbicgstab_maf_history_parity_f64():
 
 
 def test_maf_reference_128_iteration_counts_checked_in():
-    """Checked-in 128^3 MAF oracle histories: the ref-iters column of every
-    _maf row in BENCH_RESULTS.md comes from these files."""
-    # Counts pinned at generation time; see BENCH_RESULTS.md MAF rows.
+    """Checked-in 128^3 MAF oracle histories (chip_smoke.py compares the
+    sor2sma_maf count live on the card)."""
+    # Counts pinned at generation time.
     # Within +-1 of the constant-coefficient counts everywhere (the f32
     # metric arithmetic perturbs each coefficient by ulps): sor2sma 1813,
     # psor 3249, jacobi 5377 (const 5378), pcr 1356 (const 1357),

@@ -191,10 +191,10 @@ def test_history_file_format(tmp_path):
     assert len(lines) == res.iters + 1
 
 
-def test_replaced_nonzero_rhs_not_dropped():
+def test_replaced_nonzero_rhs_not_dropped(interpret_kernel):
     """dataclasses.replace(prob, rhs=nonzero) keeps the stale
-    rhs_inner_zero hint; the fused (b_is_zero) path must not trust it and
-    silently solve the Laplace problem instead."""
+    rhs_inner_zero hint; the red-black kernel (b_is_zero form) must not
+    trust it and silently solve the Laplace problem instead."""
     import dataclasses
 
     prob0 = Problem.poisson_cube(16)

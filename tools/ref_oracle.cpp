@@ -38,8 +38,18 @@
 //   exact solution       src/cz_f90/cz_utility.f90:52-82
 //
 // Usage: ref_oracle N solver itmax omega [precond] [--fp64] [--eps E] [--out F]
+//                   [--plane-partials]
 // Writes "<solver>.txt" history rows "%6d, %13.6e" (cz_Poisson.cpp:71) and
 // prints "iters=... res=... errmax=..." on stdout.
+//
+// --plane-partials (sor2sma): one float residual partial per j-plane, added
+// in double in plane order, instead of one float partial per color.  The
+// reference's OpenMP build keeps one float partial per thread; this is the
+// limit of one thread per plane.  The field arithmetic is unchanged (nodes
+// of one color never neighbour each other), only the residual's rounding:
+// a single float accumulator over the ~6.6e7 nodes of a 512^3 color adds
+// terms far below its ulp and undercounts the sum.  Compiled with -fopenmp
+// the planes run in parallel; the result does not depend on it.
 
 #include <algorithm>
 #include <cmath>
@@ -50,6 +60,8 @@
 #include <vector>
 
 namespace {
+
+bool g_plane_partials = false;  // --plane-partials
 
 template <typename Real>
 struct Field {
@@ -137,8 +149,31 @@ double sor2sma_sweep(Field<Real>& p, const Field<Real>& b, Real omg) {
   const int n = p.n;
   const Real r6 = Real(1) / Real(6);
   double res = 0.0;
+  std::vector<Real> plane(n + 1, Real(0));  // --plane-partials, by 1-based j
   for (int color = 0; color < 2; ++color) {
     Real res1 = 0;
+    if (g_plane_partials) {
+#pragma omp parallel for schedule(static)
+      for (int j1 = 2; j1 <= n - 1; ++j1) {
+        Real rj = 0;
+        for (int i1 = 2; i1 <= n - 1; ++i1) {
+          int k1st = 2 + (i1 + j1 + color) % 2;
+          for (int k1 = k1st; k1 <= n - 1; k1 += 2) {
+            int i = i1 - 1, j = j1 - 1, k = k1 - 1;
+            Real pp = p.at(k, i, j);
+            Real ss = p.at(k, i + 1, j) + p.at(k, i - 1, j) +
+                      p.at(k, i, j + 1) + p.at(k, i, j - 1) +
+                      p.at(k + 1, i, j) + p.at(k - 1, i, j);
+            Real dp = ((ss - b.at(k, i, j)) * r6 - pp) * omg;
+            p.at(k, i, j) = pp + dp;
+            rj += dp * dp;
+          }
+        }
+        plane[j1] = rj;
+      }
+      for (int j1 = 2; j1 <= n - 1; ++j1) res += static_cast<double>(plane[j1]);
+      continue;
+    }
     for (int j1 = 2; j1 <= n - 1; ++j1)      // 1-based loops to keep the
       for (int i1 = 2; i1 <= n - 1; ++i1) {  // parity formula literal
         int k1st = 2 + (i1 + j1 + color) % 2;
@@ -876,7 +911,7 @@ int main(int argc, char** argv) {
   if (argc < 5) {
     std::fprintf(stderr,
                  "usage: %s N solver itmax omega [precond] [--fp64] [--eps E] "
-                 "[--out F]\n", argv[0]);
+                 "[--out F] [--plane-partials]\n", argv[0]);
     return 2;
   }
   int n = std::atoi(argv[1]);
@@ -892,6 +927,7 @@ int main(int argc, char** argv) {
     if (s == "--fp64") fp64 = true;
     else if (s == "--eps" && a + 1 < argc) eps = std::atof(argv[++a]);
     else if (s == "--out" && a + 1 < argc) outpath = argv[++a];
+    else if (s == "--plane-partials") g_plane_partials = true;
     else precond = s;
   }
   return fp64 ? run<double>(n, solver, itmax, omega, precond, eps, outpath)
